@@ -1,14 +1,13 @@
-"""Large-pattern-set scale points (100k / 300k / 1M) on real TPU.
+"""Large-pattern-set scale points (100k / 300k / 1M) on the device.
 
 Same honest protocol as bench.py (K scans inside one jit, t(K_hi)-t(K_lo)).
 The strided mode cannot hold stride x n grams at a usable fp past ~30k
 patterns (k*v ceiling); winnowing-sampled mode is the large-set enabler.
 
-Beyond throughput, each point reports what VERDICT r2 item 5 asked the
-scale curve to prove: DFA + filter build time, peak RSS, the chooser's
-pick, that the FAST dense window walker is bound (no silent sparse-oracle
-fallback — the round-2 512 MB guard disabled it exactly at scale), and a
-save/load roundtrip of the compiled artifacts.
+Beyond throughput, each point reports what the scale curve must prove:
+DFA + filter build time, peak RSS, the chooser's pick, that the FAST
+dense window walker is bound (no silent sparse-oracle fallback at scale),
+and a save/load roundtrip of the compiled artifacts.
 
 Usage: python benchmarks/bench_100k.py [n_patterns]
 """
@@ -35,13 +34,11 @@ def main(n_patterns=100_000):
     import jax
     import jax.numpy as jnp
 
-    from bench import devices_with_retry
-    devices_with_retry()
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.engine import best_scan_total_fn
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
-    from tpu_pattern_matching.runtime.verify import Verifier
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.engine import best_scan_total_fn
+    from pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.runtime.verify import Verifier
 
     rng = np.random.RandomState(42)
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
@@ -82,7 +79,7 @@ def main(n_patterns=100_000):
           bft.save(os.path.join(td, "bloom.npz"))
           save_s = time.time() - t0
           t0 = time.time()
-          from tpu_pattern_matching.core.dfa import DfaTable
+          from pattern_matching.core.dfa import DfaTable
 
           t2 = DfaTable.load(os.path.join(td, "dfa.npz"))
           b2 = BloomFilterTable.load(os.path.join(td, "bloom.npz"))

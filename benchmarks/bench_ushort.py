@@ -4,7 +4,7 @@ The AC_ushorts workload (SURVEY.md section 2.2) on the reference's REAL
 signature traces (AC_ushorts/input/{tx,rx,txrx}.signatures — per-flow
 packet-length trains, truncated to MAX_PATT_LEN=16 tokens like
 iacsmx.c:11): alphabet-2048 bloom probe over uint16 token lanes, honest
-K-loop protocol (BENCH_NOTES.md — K scans inside one jit, carry threaded
+K-loop protocol (K scans inside one jit, carry threaded
 through an operand, t(K_hi) - t(K_lo)).
 
 Reports tokens/s and uint16-payload bytes/s for (a) the probe-objective
@@ -33,8 +33,8 @@ REF_SIGS = [
 
 
 def build_table(paths):
-    from tpu_pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
-    from tpu_pattern_matching.core.patterns import load_signature_file
+    from pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
+    from pattern_matching.core.patterns import load_signature_file
 
     ac = AhoCorasick(ALPHABET_USHORT)
     seen = set()
@@ -71,15 +71,14 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
-        DeviceBloom,
         _hits_jit,
         _hits_refined_jit,
     )
-    from tpu_pattern_matching.ops.exact_gram import table_from_keys
-    from tpu_pattern_matching.ops.verify_device import next_cap
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.ops.exact_gram import table_from_keys
+    from pattern_matching.ops.verify_device import next_cap
+    from pattern_matching.utils.common import pad_halo
 
     paths = sys.argv[1:] or REF_SIGS
     table, n_in, n_used = build_table(paths)
@@ -89,7 +88,6 @@ def main() -> None:
         "signatures_used": n_used,
         "states": table.num_states,
     }
-    interpret = DeviceBloom._interpret()
     rng = np.random.RandomState(11)
     C, B0 = 4096, 2048  # tokens per lane
 
@@ -120,8 +118,7 @@ def main() -> None:
             def body(acc, _):
                 b2 = bounds.at[0, 0].add(acc & 1)
                 total, _bits = _hits_jit(
-                    data, b2, words, cfg=cfg, interpret=interpret
-                )
+                    data, b2, words, cfg=cfg)
                 return acc + total[0], None
 
             acc, _ = jax.lax.scan(
@@ -157,7 +154,7 @@ def main() -> None:
                     b2 = bounds.at[0, 0].add(acc & 1)
                     total, _bits = _hits_refined_jit(
                         data, b2, words, exact_lo, exact_hi, cfg=cfg,
-                        interpret=interpret, exact_meta=meta, k_ref=k_ref,
+                        exact_meta=meta, k_ref=k_ref,
                     )
                     return acc + total[0], None
 
@@ -168,7 +165,7 @@ def main() -> None:
 
             m0, _b0 = _hits_refined_jit(
                 data, bounds, words, exact_lo, exact_hi, cfg=cfg,
-                interpret=interpret, exact_meta=meta, k_ref=k_ref,
+                exact_meta=meta, k_ref=k_ref,
             )
             out["refined_residue_per_token"] = int(np.asarray(m0)[0]) / (
                 C * B

@@ -26,7 +26,7 @@ def main() -> None:
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
             for _ in range(n)]
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.core.dfa import compile_patterns
 
     t0 = time.perf_counter()
     prof = cProfile.Profile()

@@ -1,8 +1,8 @@
 """A/B alternative device compaction formulations for bitmap_to_candidates.
 
 exp_refine_stages.py located the refined-probe overhead in the two
-cumsum+scatter compaction stages (5.2 + 1.7 ms per batch on v5e at the
-official shape) — NOT in the exact-gram gathers (0.4 ms). This harness
+cumsum+scatter compaction stages — NOT in the exact-gram gathers. This
+harness
 times primitive formulations on a real survivor bitmap shape to pick a
 faster compaction:
 
@@ -44,10 +44,6 @@ def main() -> None:
 
     import jax
     import jax.numpy as jnp
-
-    from bench import devices_with_retry
-
-    devices_with_retry()
 
     W, Cb, k_ref = args.W, args.Cb, args.k
     N = W * Cb

@@ -6,8 +6,8 @@ The device verify pipeline (ops/verify_device.py) needs, per batch:
   (c) a windowed DFA walk = 2 gathers per (cand, step)  (~1e5-1e6 gathers)
   (d) event compaction + per-group scatter-add          (~1e5 elements)
 
-XLA:TPU lowers gather to ~5-13 ns/element serialized (BENCH_NOTES);
-whether scatter / top_k / sort behave the same decides which compaction
+Where gather is serialized per element, whether scatter / top_k / sort
+behave the same decides which compaction
 strategy the verify kernel should use. Honest K-loop protocol (carry
 threaded through an operand; fetch a scalar; difference t(K_hi)-t(K_lo)).
 """
@@ -61,9 +61,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import devices_with_retry
 
-    devices_with_retry()
     rng = np.random.RandomState(0)
     results = {}
 
@@ -184,12 +182,8 @@ def verify_stage_solo():
     import jax
     import jax.numpy as jnp
 
-    from bench import devices_with_retry
-
-    devices_with_retry()
-
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.verify_device import _verify_kernel
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.verify_device import _verify_kernel
 
     rng = np.random.RandomState(0)
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))

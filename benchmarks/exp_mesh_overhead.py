@@ -1,6 +1,6 @@
 """Mesh-step overhead on the real chip: plain probe vs shard_map probe.
 
-VERDICT r4 item 5's silicon arm: the scaling table's 1-device anchor.
+The scaling table's 1-device anchor.
 The data-parallel scan has no cross-device communication in its hot loop
 (table replicated, lanes independent, one psum per batch), so the only
 per-chip cost an N-chip mesh adds over the single-chip dispatch is the
@@ -33,23 +33,20 @@ def main(n_patterns: int = 10_000) -> None:
     from jax.sharding import PartitionSpec as P
 
     sys.path.insert(0, ".")
-    from bench import devices_with_retry
 
-    devices_with_retry()
 
     try:
         from jax import shard_map
     except ImportError:
         from jax.experimental.shard_map import shard_map
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
-        DeviceBloom,
         _hits_jit,
     )
-    from tpu_pattern_matching.parallel.mesh import MeshContext, make_mesh
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.parallel.mesh import MeshContext, make_mesh
+    from pattern_matching.utils.common import pad_halo
 
     rng = np.random.RandomState(42)
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
@@ -64,7 +61,6 @@ def main(n_patterns: int = 10_000) -> None:
     data_np = rng.randint(0, 256, size=(C, halo + B)).astype(np.uint8)
     bounds_np = np.stack([np.full(C, halo, np.int32),
                           np.full(C, halo + B, np.int32)])
-    interpret = DeviceBloom._interpret()
 
     ctx = MeshContext(make_mesh(jax.devices()[:1]))
     words_r = jax.device_put(bft.words, ctx.replicated)
@@ -75,8 +71,7 @@ def main(n_patterns: int = 10_000) -> None:
     bounds_p = jax.device_put(bounds_np)
 
     def local_probe(words, data, bounds):
-        total, _bits = _hits_jit(data, bounds, words, cfg=cfg,
-                                 interpret=interpret)
+        total, _bits = _hits_jit(data, bounds, words, cfg=cfg)
         return jax.lax.psum(total, ctx.axis)
 
     mesh_probe = shard_map(
@@ -89,8 +84,7 @@ def main(n_patterns: int = 10_000) -> None:
     def plain(data, bounds, *, K):
         def body(acc, _):
             b2 = bounds.at[0, 0].add(acc & 1)
-            total, _bits = _hits_jit(data, b2, words_p, cfg=cfg,
-                                     interpret=interpret)
+            total, _bits = _hits_jit(data, b2, words_p, cfg=cfg)
             return acc + total[0], None
 
         acc, _ = jax.lax.scan(body, jnp.zeros((), jnp.int32), None,

@@ -1,7 +1,6 @@
 """A/B: meshed device-EVENT verify vs host verify, per batch, official point.
 
-VERDICT r3 item 1's measurement criterion: with MatchSession(mesh=...,
-verify="device") now supported, what does the lane-sharded device event
+With MatchSession(mesh=..., verify="device"), what does the lane-sharded device event
 path cost per batch next to the host native walker it replaces?
 
 Arms (interleaved, honest K-loop where the work is device-side):
@@ -36,24 +35,22 @@ def main(n_patterns: int = 10_000, density: float = 1e-3) -> None:
     import jax
 
     sys.path.insert(0, ".")
-    from bench import devices_with_retry
 
-    devices_with_retry()
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
         unpack_hit_rows,
     )
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.parallel.mesh import (
         MeshContext,
         MeshDeviceVerifier,
         make_mesh,
         make_sharded_bloom_step,
     )
-    from tpu_pattern_matching.ops.verify_device import next_cap
-    from tpu_pattern_matching.runtime.verify import Verifier
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.ops.verify_device import next_cap
+    from pattern_matching.runtime.verify import Verifier
+    from pattern_matching.utils.common import pad_halo
 
     rng = np.random.RandomState(42)
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))

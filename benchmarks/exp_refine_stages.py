@@ -42,32 +42,24 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from bench import devices_with_retry
-
-    devices_with_retry()
-
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
-        DeviceBloom,
         _hits_jit,
         _hits_refined_jit,
-        _prep_time_major,
         _probe_bits_jit,
-        PACKED_AUTO,
-        _packed_eligible,
     )
-    from tpu_pattern_matching.ops.exact_gram import (
+    from pattern_matching.ops.exact_gram import (
         DeviceExact,
         exact_member,
         table_from_keys,
     )
-    from tpu_pattern_matching.ops.verify_device import (
+    from pattern_matching.ops.verify_device import (
         _compact_flags,
         bitmap_to_candidates,
         next_cap,
     )
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.utils.common import pad_halo
 
     rng = np.random.RandomState(42)
     pats = [bytes(rng.randint(0, 256, size=12).astype(np.uint8))
@@ -80,7 +72,6 @@ def main() -> None:
     B += (-(halo + B)) % cfg.tile_rows
     size = C * B
     words = jax.device_put(bft.words)
-    interpret = DeviceBloom._interpret()
 
     drng = np.random.RandomState(7)
     data_np = drng.randint(0, 256, size=(C, halo + B)).astype(np.uint8)
@@ -89,7 +80,7 @@ def main() -> None:
         np.stack([np.full(C, halo, np.int32), np.full(C, halo + B, np.int32)])
     )
 
-    meta, bits0 = _hits_jit(data, bounds, words, cfg=cfg, interpret=interpret)
+    meta, bits0 = _hits_jit(data, bounds, words, cfg=cfg)
     survivors = int(np.asarray(meta)[0])
     k_ref = args.k_ref or next_cap(max(survivors, 1))
 
@@ -98,13 +89,8 @@ def main() -> None:
     exact_hi = jax.device_put(xt.hi.view(np.int32)) if xt.use_hi else None
     exact_meta = xt.device_meta(cfg.fold_case)
 
-    packed = PACKED_AUTO and _packed_eligible(cfg, data.dtype)
-
     def probe_bits(data, b2):
-        data_tm, Cp = _prep_time_major(data, cfg, packed)
-        boundsp = jnp.pad(b2, ((0, 0), (0, Cp - C)))
-        return _probe_bits_jit(data_tm, boundsp, words, cfg=cfg,
-                               interpret=interpret)
+        return _probe_bits_jit(data, b2, words, cfg=cfg)
 
     def stage_probe(data, b2):
         bits = probe_bits(data, b2)
@@ -165,7 +151,7 @@ def main() -> None:
     def stage_refined(data, b2):
         total, _bits = _hits_refined_jit(
             data, b2, words, exact_lo, exact_hi, cfg=cfg,
-            interpret=interpret, exact_meta=exact_meta, k_ref=k_ref,
+            exact_meta=exact_meta, k_ref=k_ref,
         )
         return total[0]
 

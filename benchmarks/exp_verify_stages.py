@@ -1,9 +1,8 @@
 """Decompose the fused device-joint cost (probe + verify) stage by stage.
 
-The device-joint metric (bench.py) runs probe + _verify_kernel in one jit;
-BENCH_NOTES round 3 shows ~13-17 ms/batch at the official joint config
-while the modeled walk cost is only ~4 ms. This experiment finds where the
-rest goes, with interleaved honest-K-loop arms that truncate the verify
+The device-joint metric (bench.py) runs probe + _verify_kernel in one jit,
+and its time can exceed the modeled walk cost several-fold. This
+experiment finds where the rest goes, with interleaved honest-K-loop arms that truncate the verify
 pipeline after each stage (the ``stages`` bench hook in
 ops/verify_device.py):
 
@@ -34,20 +33,18 @@ def main(n_patterns: int = 10_000, density: float = 0.0) -> None:
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")
-    from bench import build_workload, devices_with_retry
+    from bench import build_workload
 
-    devices_with_retry()
 
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
-        DeviceBloom,
         _hits_jit,
     )
-    from tpu_pattern_matching.ops.verify_device import (
+    from pattern_matching.ops.verify_device import (
         _verify_kernel,
         next_cap,
     )
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.utils.common import pad_halo
 
     table = build_workload(n_patterns)
     bft = BloomFilterTable.from_table(table, objective="joint")
@@ -57,7 +54,6 @@ def main(n_patterns: int = 10_000, density: float = 0.0) -> None:
     B = B0 + (-(halo + B0)) % cfg.tile_rows
     T = halo + B
     size = C * B
-    interpret = DeviceBloom._interpret()
 
     rng = np.random.RandomState(7)
     data_np = rng.randint(0, 256, size=(C, T)).astype(np.uint8)
@@ -79,8 +75,7 @@ def main(n_patterns: int = 10_000, density: float = 0.0) -> None:
     )
     state_gid = jax.device_put(table.state_gid.astype(np.int32))
 
-    meta, _bits = _hits_jit(data, bounds, words, cfg=cfg,
-                            interpret=interpret)
+    meta, _bits = _hits_jit(data, bounds, words, cfg=cfg)
     survivors = int(np.asarray(meta)[0])
     k_cand = next_cap(max(survivors, 1))
 
@@ -89,8 +84,7 @@ def main(n_patterns: int = 10_000, density: float = 0.0) -> None:
         def rep(data, bounds, *, K):
             def body(acc, _):
                 b2 = bounds.at[0, 0].add(acc & 1)
-                total, bits = _hits_jit(data, b2, words, cfg=cfg,
-                                        interpret=interpret)
+                total, bits = _hits_jit(data, b2, words, cfg=cfg)
                 acc = acc + total[0]
                 if stages > 0:
                     m, _p, gc = _verify_kernel(

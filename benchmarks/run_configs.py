@@ -39,11 +39,11 @@ CLAMAV_DIR = "/root/reference/clamav_sample_sigs"
 def _sig_set(n: int, seed: int, length: int, limit: int = -1):
     """The reference's REAL ClamAV signature sets when its checkout is
     present (heavy shared prefixes shift the bloom chooser's true-gram hit
-    rate — VERDICT round-1 item 7), else synthetic hex of the same scale.
+    rate), else synthetic hex of the same scale.
     Returns (sigs, source_tag)."""
     path = os.path.join(CLAMAV_DIR, f"{n}.txt")
     if os.path.exists(path):
-        from tpu_pattern_matching.core.patterns import load_pattern_file
+        from pattern_matching.core.patterns import load_pattern_file
 
         parsed = load_pattern_file(path, hex_pat=True, pat_size_limit=limit)
         return [p.data for p in parsed], "clamav"
@@ -66,9 +66,9 @@ def emit(name: str, **kw) -> None:
 def config1() -> None:
     """Word corpus vs CPU oracle — exact (offset, pattern) parity."""
     from tests.fixtures import random_words_corpus
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.runtime.session import MatchSession
 
     patterns, corpus = random_words_corpus(seed=31, n_lines=2000)
     sess = MatchSession(compile_patterns(patterns), max_chunks=256, chunk_len=128)
@@ -83,8 +83,8 @@ def config1() -> None:
 def _scan_file_throughput(
     sigs: list[bytes], path: str, *, sort: bool, check_oracle: bool
 ) -> dict:
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.runtime.session import MatchSession
 
     table = compile_patterns(sigs)
     sess = MatchSession(table, max_chunks=2048, chunk_len=4096, sort=sort)
@@ -113,7 +113,7 @@ def _scan_file_throughput(
     }
     if check_oracle:
         try:
-            from tpu_pattern_matching.core.oracle_native import NativeOracle
+            from pattern_matching.core.oracle_native import NativeOracle
 
             o = NativeOracle(sigs)
             with open(path, "rb") as f:
@@ -175,9 +175,9 @@ def config3(data_dir: str) -> None:
 
 def config4(data_dir: str) -> None:
     """15k sigs truncated to 12B, multi-file streaming via the feeder."""
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.runtime.feeder import Feeder
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.runtime.feeder import Feeder
+    from pattern_matching.runtime.session import MatchSession
 
     sigs, src = _sig_set(15_000, seed=4, length=12, limit=12)  # -m 12
     files = [
@@ -236,7 +236,7 @@ def config6(data_dir: str) -> None:
     scan — the reference's _EMPTY no-op kernel role
     (AC_ushorts/ocl_worker.c:36-42): isolates host feed/staging overhead
     from matching."""
-    from tpu_pattern_matching.runtime.feeder import Feeder
+    from pattern_matching.runtime.feeder import Feeder
 
     files = [
         _random_file(os.path.join(data_dir, f"32MB.{i}.bin"), 32, seed=i)
@@ -263,8 +263,8 @@ def config6(data_dir: str) -> None:
 
     # ushort arm: flow-text -> token ingest without the device scan (the
     # token path's _EMPTY baseline; the byte arm above cannot see the
-    # parse cost — VERDICT r2 item 7)
-    from tpu_pattern_matching.runtime.buffers import UshortBuffer
+    # parse cost)
+    from pattern_matching.runtime.buffers import UshortBuffer
 
     flow = os.path.join(data_dir, "flow_tokens.txt")
     if not os.path.exists(flow) or os.path.getsize(flow) < 32 << 20:
@@ -305,23 +305,23 @@ def config5() -> None:
     bloom engine via MatchSession(mesh=) with host-verified event counts
     (allreduced across processes); and the bloom probe + DEVICE verify +
     psum count step (make_sharded_bloom_count_step) with zero host CPU in
-    the verify loop (VERDICT r2 item 1)."""
+    the verify loop."""
     import io
 
     import jax
 
     from tests.fixtures import random_words_corpus
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.table import DeviceTable
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.table import DeviceTable
+    from pattern_matching.parallel.mesh import (
         MeshContext,
         allreduce_host_counts,
         make_mesh,
         make_sharded_bloom_count_step,
         make_sharded_scan_step,
     )
-    from tpu_pattern_matching.runtime.buffers import DataBuffer, StreamState
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.runtime.buffers import DataBuffer, StreamState
+    from pattern_matching.runtime.session import MatchSession
 
     words, corpus = random_words_corpus(seed=55, n_lines=5000, n_patterns=64)
     patterns = [b" " + w + b" " for w in words]
@@ -334,7 +334,7 @@ def config5() -> None:
     # count below corpus/chunk_len would silently truncate the dense arm
     # while the bloom session streams everything — caught on the 1-chip
     # run), rounded to the mesh's 128-per-shard alignment
-    from tpu_pattern_matching.utils.common import cdiv, roundup
+    from pattern_matching.utils.common import cdiv, roundup
 
     C = roundup(cdiv(len(corpus), 256) + 1, 128 * n_dev)
     buf = DataBuffer(C, 256, halo)

@@ -1,10 +1,9 @@
 """Scaling-efficiency benchmark: bytes/s at 1..N devices.
 
-BASELINE target: >=80% linear bytes/s scaling 1 -> N. On real multi-chip
-hardware this measures true ICI scaling; in this environment (one physical
-chip) it runs on the simulated N-device CPU mesh by default
-(``--platform cpu``), which validates the sharded program and the scaling
-HARNESS rather than silicon. The data-parallel scan has no cross-device
+BASELINE target: >=80% linear bytes/s scaling 1 -> N. On real multi-GPU
+hardware this measures interconnect scaling; by default it runs on the
+simulated N-device CPU mesh (``--platform cpu``), which validates the
+sharded program and the scaling HARNESS rather than the hardware. The data-parallel scan has no cross-device
 communication in its hot loop (table replicated, lanes independent, one [G]
 psum per batch), so near-linear scaling is structural.
 """
@@ -25,9 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def run_multiprocess(args) -> None:
     """The multi-HOST arm: N processes x (devices/N) CPU devices grep the
     same corpus through the real CLI, each host's feeder owning a DISJOINT
-    round-robin file subset (input bandwidth scales with hosts — VERDICT
-    r2 missing 2). On this one-core host the numbers validate the harness
-    and the lockstep product path, not silicon; on real separate hosts the
+    round-robin file subset (input bandwidth scales with hosts). On this
+    one-core host the numbers validate the harness
+    and the lockstep product path, not the hardware; on real separate hosts the
     same command measures true DCN scaling."""
     import socket
     import subprocess
@@ -61,7 +60,7 @@ def run_multiprocess(args) -> None:
     worker_env["JAX_PLATFORMS"] = "cpu"
     code = (
         "import sys, jax; jax.config.update('jax_platforms', 'cpu');"
-        "from tpu_pattern_matching.cli import main;"
+        "from pattern_matching.cli import main;"
         "sys.exit(main(sys.argv[1:]))"
     )
     cli_args = [
@@ -127,16 +126,16 @@ def main() -> None:
     else:
         import jax
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
-    from tpu_pattern_matching.ops.table import DeviceTable
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.ops.table import DeviceTable
+    from pattern_matching.parallel.mesh import (
         MeshContext,
         make_mesh,
         make_sharded_bloom_step,
         make_sharded_scan_step,
     )
-    from tpu_pattern_matching.utils.common import pad_halo
+    from pattern_matching.utils.common import pad_halo
 
     rng = np.random.RandomState(0)
     pats = [

@@ -1,0 +1,273 @@
+"""Threaded input feeder with double buffering.
+
+Plays the role of the reference's ``-w`` CPU worker threads
+(ocl_aho_grep.c:36-144 cpu_worker): overlap file reads with device compute.
+Each feeder owns a disjoint round-robin subset of the input files
+(``cur_file += thread_no``, ocl_aho_grep.c:87) and its own DataBuffer; full
+batches flow through a bounded queue to the single device consumer — the
+device work is submitted from one thread, but reads, batch assembly, and
+device compute overlap (the reference's rounds are fully serialized per
+thread, SURVEY.md section 3.2).
+
+Follow mode (``-F``, README:19-22): feeders loop back over their file set,
+re-reading appended data from the saved per-stream offset, so growing files
+and FIFOs are processed continuously. FIFOs are opened non-blocking and read
+partially (``_FifoReader``) — a trickle-fed pipe yields timely batches
+instead of blocking the worker until a full buffer accumulates.
+
+Errors are loud: a worker exception (unreadable file, vanished file, ...)
+surfaces to the consumer loop as a raised RuntimeError, matching the
+reference's fail-loud ERRX discipline (e.g. databuf.c:109) — silent
+end-of-iteration would silently drop matches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import select
+import stat
+import threading
+
+from pattern_matching.runtime.buffers import DataBuffer, HostBatch, StreamState
+
+
+@dataclasses.dataclass
+class FeedItem:
+    batch: HostBatch
+    lines: int
+    bytes: int
+
+
+@dataclasses.dataclass
+class FeedError:
+    """A worker failure, delivered in-band so the consumer can fail loud."""
+
+    filename: str
+    error: BaseException
+
+
+_SENTINEL = None
+
+
+class _FifoReader:
+    """Partial, timeout-bounded reads from a FIFO (or any pipe-like fd).
+
+    ``open()`` + buffered ``read(n)`` would block until n bytes arrive — a
+    trickle-fed FIFO would starve the feeder (and ``seek`` raises ESPIPE).
+    Non-blocking open + select-gated ``os.read`` returns whatever is
+    available now; ``b""`` means "nothing yet", which follow mode treats as
+    quiescence, not EOF.
+    """
+
+    def __init__(self, path: str, timeout: float = 0.05):
+        self._fd = os.open(path, os.O_RDONLY | os.O_NONBLOCK)
+        self._buf = bytearray()
+        self._timeout = timeout
+
+    def seekable(self) -> bool:
+        return False
+
+    def _fill(self, n: int) -> None:
+        r, _, _ = select.select([self._fd], [], [], self._timeout)
+        if not r:
+            return
+        try:
+            self._buf += os.read(self._fd, max(n, 1 << 16))
+        except BlockingIOError:
+            pass
+
+    def read(self, n: int) -> bytes:
+        if len(self._buf) < n:
+            self._fill(n - len(self._buf))
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    def readline(self, limit: int) -> bytes:
+        """One line (or a limit-sized fragment); b"" when nothing complete
+        is available yet (a partial line stays buffered for the next
+        visit)."""
+        while True:
+            nl = self._buf.find(b"\n")
+            if nl != -1 or len(self._buf) >= limit:
+                k = min(nl + 1 if nl != -1 else limit, limit)
+                out = bytes(self._buf[:k])
+                del self._buf[:k]
+                return out
+            before = len(self._buf)
+            self._fill(1 << 16)
+            if len(self._buf) == before:
+                return b""
+
+    def close(self) -> None:
+        os.close(self._fd)
+
+
+def _open_input(path: str):
+    """Open one input for streaming: FIFOs get the non-blocking partial
+    reader, regular files a plain buffered handle."""
+    try:
+        is_fifo = stat.S_ISFIFO(os.stat(path).st_mode)
+    except OSError:
+        is_fifo = False
+    return _FifoReader(path) if is_fifo else open(path, "rb")
+
+
+class Feeder:
+    def __init__(
+        self,
+        filenames: list[str],
+        *,
+        n_workers: int,
+        max_chunks: int,
+        chunk_len: int,
+        halo: int,
+        text_mode: bool = False,
+        follow: bool = False,
+        queue_depth: int = 4,
+        buffer_factory=DataBuffer,
+        process_id: int = 0,
+        num_processes: int = 1,
+    ):
+        """``process_id``/``num_processes`` extend the reference's
+        round-robin file ownership (``cur_file += thread_no``,
+        ocl_aho_grep.c:87) across HOSTS: worker ``wid`` of process ``p``
+        owns files ``p*W + wid, p*W + wid + P*W, ...`` — every host reads
+        a DISJOINT subset, so input bandwidth scales with host count."""
+        self.buffer_factory = buffer_factory
+        self.filenames = filenames
+        self.process_id = process_id
+        self.num_processes = max(1, num_processes)
+        self.n_workers = max(1, min(n_workers, len(filenames) or 1))
+        self.max_chunks = max_chunks
+        self.chunk_len = chunk_len
+        self.halo = halo
+        self.text_mode = text_mode
+        self.follow = follow
+        self.q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
+        self.terminate = threading.Event()
+        self._threads: list[threading.Thread] = []
+
+    # ------------------------------------------------------------- workers
+
+    def _worker(self, wid: int) -> None:
+        buf = self.buffer_factory(self.max_chunks, self.chunk_len, self.halo)
+        buf.follow = self.follow  # token buffers hold partial trailing
+        # numbers across follow-mode quiescence (flushed by finalize below)
+        streams: dict[int, StreamState] = {}
+        handles: dict[int, object] = {}
+        pend_bytes = 0
+        pend_lines = 0
+
+        def flush():
+            nonlocal pend_bytes, pend_lines
+            if buf.chunks:
+                # hand off the arrays; allocate a fresh buffer for reuse
+                self.q.put(FeedItem(buf.to_batch(), pend_lines, pend_bytes))
+                buf._alloc()
+                pend_bytes = 0
+                pend_lines = 0
+
+        gw0 = self.process_id * self.n_workers + wid  # global worker id
+        step = self.num_processes * self.n_workers
+        cur = -1
+        try:
+            while not self.terminate.is_set():
+                progressed = False
+                cur = gw0
+                while cur < len(self.filenames):
+                    if self.terminate.is_set():
+                        break
+                    if cur not in handles:
+                        from pattern_matching.utils.debug import dprint
+
+                        dprint(2, "feeder[%d]: open %s", wid,
+                               self.filenames[cur])
+                        handles[cur] = _open_input(self.filenames[cur])
+                        streams[cur] = StreamState(file_id=cur)
+                    elif handles[cur].seekable():
+                        # follow mode, regular file: pick up appended data
+                        # from where this stream left off (FIFOs are not
+                        # seekable — their reader tracks position itself).
+                        # Token streams advance ``offset`` in TOKEN units;
+                        # their raw read position is ``text_off`` (seeking
+                        # the token count would re-read and re-parse
+                        # already-consumed text -> duplicate tokens).
+                        st = streams[cur]
+                        handles[cur].seek(
+                            st.text_off if st.text_off >= 0 else st.offset
+                        )
+                    fobj, stream = handles[cur], streams[cur]
+                    while True:
+                        if self.text_mode:
+                            code, rd, lines = buf.add_lines(fobj, stream)
+                            pend_lines += lines
+                        else:
+                            code, rd = buf.add_stream(fobj, stream)
+                        pend_bytes += rd
+                        progressed = progressed or rd > 0
+                        if code == -1:
+                            flush()
+                            continue
+                        if rd == 0:
+                            break
+                    cur += step
+                if not self.follow:
+                    break
+                if not progressed:
+                    # quiescent: deliver whatever is buffered so trickle-fed
+                    # FIFOs/logs see timely results (the reference only
+                    # processes on a FULL buffer in follow mode — a starvation
+                    # bug for slow streams we deliberately fix), then idle
+                    # briefly to avoid a busy loop.
+                    flush()
+                    self.terminate.wait(0.05)
+            # shutdown: flush held parse state (a partial trailing number a
+            # token stream was holding for a possible later append) before
+            # the final batch leaves
+            for st in streams.values():
+                if buf.full:
+                    flush()
+                buf.finalize_stream(st)
+            flush()
+        except BaseException as e:  # fail loud (reference ERRX discipline)
+            fname = (
+                self.filenames[cur]
+                if 0 <= cur < len(self.filenames)
+                else "<feeder>"
+            )
+            self.q.put(FeedError(filename=fname, error=e))
+        finally:
+            for h in handles.values():
+                try:
+                    h.close()
+                except Exception:
+                    pass
+            self.q.put(_SENTINEL)
+
+    # ----------------------------------------------------------------- API
+
+    def start(self) -> None:
+        for wid in range(self.n_workers):
+            t = threading.Thread(target=self._worker, args=(wid,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        self.terminate.set()
+
+    def __iter__(self):
+        done = 0
+        while done < self.n_workers:
+            item = self.q.get()
+            if item is _SENTINEL:
+                done += 1
+                continue
+            if isinstance(item, FeedError):
+                self.stop()
+                raise RuntimeError(
+                    f"feeder failed on '{item.filename}': {item.error!r}"
+                ) from item.error
+            yield item

@@ -2,25 +2,25 @@
 
 The sampled mode inserts only each pattern's per-window rightargmin grams
 and tests only winnowing-selected text positions — the large-pattern-set
-regime (ops/bloom.py). Device selection (a+b >= w-1 rule in the Pallas
+regime (ops/bloom.py). Device selection (a+b >= w-1 rule in the
 kernel) must agree exactly with the host fingerprint builder
 (_winnow_offsets), or matches silently vanish; everything here is checked
-against the independent CPU oracle. Runs in Pallas interpret mode on CPU.
+against the independent CPU oracle.
 """
 
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.ops.bloom import (
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.ops.bloom import (
     BloomFilterTable,
     _gram_m1,
     _sel_hash_np,
     _winnow_grams,
     _winnow_offsets,
 )
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.runtime.session import MatchSession
 
 
 def sampled_session(pats, **kw):
@@ -130,7 +130,12 @@ def test_chooser_picks_sampled_for_large_sets():
             for _ in range(30_000)]
     bft = BloomFilterTable.build(pats)
     assert bft.cfg.sampled  # strided k*v cannot hold 4x30k grams at target
-    assert bft.n_grams <= 30_000  # ~1 fingerprint per pattern at L == Lmin
+    # at most one fingerprint per w-window: (L - q + 1) - w + 1 windows per
+    # pattern at L == Lmin, fewer grams than any stride >= 2 inserts
+    cfg = bft.cfg
+    windows = (12 - cfg.q + 1) - cfg.w + 1
+    assert windows <= 2
+    assert bft.n_grams <= len(pats) * windows
     # forced strided still builds (fallback past fp target)
     bft_s = BloomFilterTable.build(pats[:1000], mode="strided")
     assert not bft_s.cfg.sampled
@@ -176,7 +181,7 @@ def test_sampled_under_mesh():
 def test_sampled_nocase():
     # fold_case folds input symbols in-kernel BEFORE the selection hash;
     # patterns are compile-time folded — both sides must agree
-    from tpu_pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.core.dfa import AhoCorasick
 
     ac = AhoCorasick(nocase=True)
     for p in (b"NeEdLe", b"HAYSTACK"):
@@ -193,9 +198,9 @@ def test_sampled_nocase():
 
 def test_sampled_ushort_alphabet():
     # winnowing over the 2048 metadata alphabet (uint16 lanes)
-    from tpu_pattern_matching.core.dfa import AhoCorasick
-    from tpu_pattern_matching.ops.bloom import unpack_hit_rows
-    from tpu_pattern_matching.runtime.verify import Verifier
+    from pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.ops.bloom import unpack_hit_rows
+    from pattern_matching.runtime.verify import Verifier
 
     ac = AhoCorasick(alphabet_size=2048)
     sigs = [(40, 32, 287, 32, 106, 196), (1500, 1500, 40, 9),

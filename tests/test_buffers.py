@@ -5,9 +5,9 @@ import io
 
 import numpy as np
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.runtime.buffers import DataBuffer, StreamState
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.runtime.buffers import DataBuffer, StreamState
+from pattern_matching.runtime.session import MatchSession
 
 
 def test_binary_vectorized_assembly():
@@ -83,9 +83,9 @@ def test_stream_state_resume_across_sessions():
     import io
     import pickle
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.runtime.session import MatchSession
 
     pats = [b"straddle!"]
     part1 = b"x" * 100 + b"strad"
@@ -122,13 +122,13 @@ def test_stream_state_resume_across_sessions():
 
 
 def test_scan_stream_bounded_buffers_and_memory():
-    """The databuf contract made checkable (VERDICT r3 item 9): a stream
+    """The databuf contract made checkable: a stream
     hundreds of times the buffer capacity allocates at most depth+1
     buffers (rotated via reset(), never re-allocated) and host RSS stays
     flat across batches."""
     import os
 
-    from tpu_pattern_matching.core.oracle import match_python
+    from pattern_matching.core.oracle import match_python
 
     def rss_kb() -> int:
         with open("/proc/self/statm") as f:

@@ -3,8 +3,8 @@
 The reference ships its benchmark signature sets as printable hex with
 heavy shared prefixes (README:71-83); prefix sharing collapses the
 distinct-gram count far below stride*n and shifts the bloom chooser's
-(q, stride/w, k, v) choice — synthetic random sigs never exercise that
-(VERDICT round-1 item 7). Skipped when the reference checkout is absent.
+(q, stride/w, k, v) choice — synthetic random sigs never exercise that.
+Skipped when the reference checkout is absent.
 """
 
 import os
@@ -20,7 +20,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _load(n, limit=-1):
-    from tpu_pattern_matching.core.patterns import load_pattern_file
+    from pattern_matching.core.patterns import load_pattern_file
 
     parsed = load_pattern_file(
         os.path.join(CLAMAV, f"{n}.txt"), hex_pat=True, pat_size_limit=limit
@@ -29,10 +29,10 @@ def _load(n, limit=-1):
 
 
 def test_chooser_on_real_2000_and_planted_parity():
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.core.oracle_native import NativeOracle
+    from pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.runtime.session import MatchSession
 
     sigs = _load(2000)
     bft = BloomFilterTable.build(sigs)
@@ -64,7 +64,7 @@ def test_chooser_on_real_2000_and_planted_parity():
 def test_real_15000_m12_truncation_builds():
     # the 15k set at -m 12 (the reference's README recipe): truncation
     # creates duplicate patterns; build + chooser must handle them
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.ops.bloom import BloomFilterTable
 
     sigs = _load(15000, limit=12)
     assert all(len(s) <= 12 for s in sigs)
@@ -80,8 +80,8 @@ def test_reference_word_fixtures_cli_parity(capsys):
     # through our CLI, offsets checked against the native oracle
     import io
 
-    from tpu_pattern_matching.cli import main
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
+    from pattern_matching.cli import main
+    from pattern_matching.core.oracle_native import NativeOracle
 
     base = "/root/reference/tests"
     for pat, data in (
@@ -114,9 +114,9 @@ def test_reference_stress_pattern_set_compiles():
     # and both engines must digest it and agree on a planted corpus
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.core.oracle_native import NativeOracle
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.core.oracle_native import NativeOracle
+    from pattern_matching.runtime.session import MatchSession
 
     pats = [
         l.strip().encode()
@@ -146,7 +146,7 @@ def test_reference_sentiment_wordlists_build():
     import os
     import tempfile
 
-    from tpu_pattern_matching.apps.sentiment import build_sentiment_patterns
+    from pattern_matching.apps.sentiment import build_sentiment_patterns
 
     base = "/root/reference/patterns/sentiment"
     with tempfile.NamedTemporaryFile("w", suffix=".txt", delete=False) as f:

@@ -1,16 +1,16 @@
 """Cost-model constants: file plumbing + chooser sensitivity.
 
-VERDICT r3 item 3: the chooser's pricing constants were frozen v5e
-calibration; they are now data (ops/costmodel.py) resolved from an env
-path / cache file with the v5e numbers as fallback, and a perturbed
-constants file must actually change the chooser's pick."""
+The chooser's pricing constants are data (ops/costmodel.py) resolved
+from an env path / cache file with the shipped calibration as fallback;
+a perturbed constants file must actually change the chooser's pick, and
+a file calibrated on another device kind must not apply."""
 
 import json
 
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.ops.costmodel import (
+from pattern_matching.ops.costmodel import (
     DEFAULT_PATH,
     ENV_VAR,
     CostConstants,
@@ -39,7 +39,7 @@ def test_roundtrip_and_resolution(tmp_path, monkeypatch):
     assert get_cost_constants() == cc
     # a missing env path falls back to defaults
     monkeypatch.setenv(ENV_VAR, str(tmp_path / "nope.json"))
-    assert get_cost_constants().source == "v5e-r4-default"
+    assert get_cost_constants().source == CostConstants().source
 
 
 def test_broken_file_falls_back_loudly(tmp_path, monkeypatch, capsys):
@@ -47,14 +47,32 @@ def test_broken_file_falls_back_loudly(tmp_path, monkeypatch, capsys):
     p.write_text(json.dumps({"probe_ns_per_unit": -1.0}))
     monkeypatch.setenv(ENV_VAR, str(p))
     cc = get_cost_constants()
-    assert cc.source == "v5e-r4-default"
+    assert cc.source == CostConstants().source
     assert "WARNING" in capsys.readouterr().err
     p.write_text(json.dumps({"not_a_field": 1.0}))
-    assert get_cost_constants().source == "v5e-r4-default"
+    assert get_cost_constants().source == CostConstants().source
+
+
+def test_other_device_calibration_refused_loudly(tmp_path, monkeypatch,
+                                                capsys):
+    from pattern_matching.ops.costmodel import calibrated_device, device_label
+
+    here = CostConstants(probe_ns_per_unit=0.25,
+                         source=f"calibrated:{device_label()}:350.00 W")
+    p = tmp_path / "cc.json"
+    here.save(str(p))
+    monkeypatch.setenv(ENV_VAR, str(p))
+    assert get_cost_constants() == here  # same device kind: used
+    other = CostConstants(probe_ns_per_unit=0.25,
+                          source="calibrated:gpu:Some Other Card:700.00 W")
+    assert calibrated_device(other.source) == "gpu:Some Other Card"
+    other.save(str(p))
+    assert get_cost_constants() == CostConstants()
+    assert "Some Other Card" in capsys.readouterr().err
 
 
 def test_perturbed_constants_change_pick(tmp_path, monkeypatch):
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.ops.bloom import BloomFilterTable
 
     monkeypatch.delenv(ENV_VAR, raising=False)
     monkeypatch.setenv(ENV_VAR, str(tmp_path / "absent.json"))
@@ -77,10 +95,10 @@ def test_perturbed_constants_change_pick(tmp_path, monkeypatch):
 
 
 def test_ushort_overrides_apply(tmp_path, monkeypatch):
-    # VERDICT r4 weak 5 "done" criterion: a 2048-alphabet build prices
+    # a 2048-alphabet build prices
     # with ushort-calibrated constants when the cache file has them,
     # while byte builds keep the byte constants
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.ops.bloom import BloomFilterTable
 
     cc = CostConstants(
         probe_ns_per_unit_u2048=123.0, verify_ns_per_cand_u2048=9.0,

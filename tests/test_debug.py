@@ -6,15 +6,15 @@ import numpy as np
 
 
 def test_dprint_levels(monkeypatch, caplog):
-    from tpu_pattern_matching.utils import debug
+    from pattern_matching.utils import debug
 
     monkeypatch.delenv("TPM_DEBUG", raising=False)
-    with caplog.at_level(logging.DEBUG, logger="tpu_pattern_matching"):
+    with caplog.at_level(logging.DEBUG, logger="pattern_matching"):
         debug.dprint(1, "should not appear")
     assert "should not appear" not in caplog.text
 
     monkeypatch.setenv("TPM_DEBUG", "1")
-    with caplog.at_level(logging.DEBUG, logger="tpu_pattern_matching"):
+    with caplog.at_level(logging.DEBUG, logger="pattern_matching"):
         debug.dprint(1, "tier1 %d", 42)
         debug.dprint(2, "tier2 hidden")
     assert "tier1 42" in caplog.text
@@ -22,11 +22,11 @@ def test_dprint_levels(monkeypatch, caplog):
 
 
 def test_framework_events_logged(monkeypatch, caplog):
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.runtime.session import MatchSession
 
     monkeypatch.setenv("TPM_DEBUG", "1")
-    with caplog.at_level(logging.DEBUG, logger="tpu_pattern_matching"):
+    with caplog.at_level(logging.DEBUG, logger="pattern_matching"):
         MatchSession(compile_patterns([b"abcd"]), max_chunks=2,
                      chunk_len=64, engine="bloom")
     assert "bloom build:" in caplog.text
@@ -37,7 +37,7 @@ def test_kernel_debug_prints_from_jit(monkeypatch, capfd):
     import jax
     import jax.numpy as jnp
 
-    from tpu_pattern_matching.utils import debug
+    from pattern_matching.utils import debug
 
     monkeypatch.setenv("TPM_DEBUG", "2")
 

@@ -4,8 +4,8 @@ CPU oracles on exact (end_offset, pattern_index) events."""
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import AhoCorasick, DfaTable, compile_patterns
-from tpu_pattern_matching.core.oracle import match_naive, match_python
+from pattern_matching.core.dfa import AhoCorasick, DfaTable, compile_patterns
+from pattern_matching.core.oracle import match_naive, match_python
 from tests.fixtures import planted_binary, random_binary
 
 
@@ -118,7 +118,7 @@ def test_save_load_roundtrip(tmp_path):
 
 
 def test_save_load_is_pickle_free(tmp_path):
-    # VERDICT r2 item 6: --load-dfa is a shipped feature, so loading an
+    # --load-dfa is a shipped feature, so loading an
     # untrusted dump must not be able to execute code. The saved archive
     # must contain no pickled object arrays, labels/symbols must survive
     # the flat layout, and legacy pickled dumps must be refused by default.

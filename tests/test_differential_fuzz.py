@@ -9,9 +9,9 @@ or grouping shows up here."""
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.runtime.session import MatchSession
 
 
 def _random_patterns(rng, n, alphabet, lmin, lmax):

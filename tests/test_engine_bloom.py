@@ -1,17 +1,16 @@
-"""Bloom engine conformance: the Pallas q-gram filter + exact host verify
-must reproduce the CPU oracle's exact (end_offset, pattern_index) events —
-the same contract the dense engine meets. Runs in Pallas interpret mode on
-the CPU mesh (tests/conftest.py)."""
+"""Bloom engine conformance: the q-gram filter + exact host verify must
+reproduce the CPU oracle's exact (end_offset, pattern_index) events — the
+same contract the dense engine meets."""
 
 import io
 
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import AhoCorasick, compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.ops.bloom import BloomFilterTable
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import AhoCorasick, compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.ops.bloom import BloomFilterTable
+from pattern_matching.runtime.session import MatchSession
 from tests.fixtures import planted_binary, random_words_corpus
 
 
@@ -25,18 +24,14 @@ def bloom_session(pats, **kw):
 
 
 def test_auto_engine_platform_aligned():
-    # auto = bloom only on TPU platforms (ADVICE round 1: on CPU the Pallas
-    # probe runs in interpret mode — correct but orders of magnitude
-    # slower); this suite runs on the CPU mesh, so auto must pick dense
-    from tpu_pattern_matching.engine import on_tpu
-
+    # auto = dense on every platform; pat_shards > 1 implies the bloom
+    # engine (the sharded filter is its capacity axis)
     sess = MatchSession(compile_patterns([b"abcd"]), max_chunks=2,
                         chunk_len=64)
-    if on_tpu():
-        assert sess.engine == "bloom"
-        assert sess.dev is None  # no DFA table shipped to the device
-    else:
-        assert sess.engine == "dense"
+    assert sess.engine == "dense"
+    sharded = MatchSession(compile_patterns([b"abcd", b"efgh"]),
+                           max_chunks=2, chunk_len=64, pat_shards=2)
+    assert sharded.engine == "bloom"
     # forcing bloom always works regardless of platform
     forced = MatchSession(compile_patterns([b"abcd"]), max_chunks=2,
                           chunk_len=64, engine="bloom")
@@ -216,7 +211,7 @@ def test_bloom_table_save_load(tmp_path):
 
 def test_vectorized_window_merge_matches_scalar():
     # merged_windows (NumPy interval merge) must equal windows_for per lane
-    from tpu_pattern_matching.runtime.verify import Verifier
+    from pattern_matching.runtime.verify import Verifier
 
     rng = np.random.RandomState(11)
     v = Verifier([b"abcdefgh"], q=3, max_pat_len=8)
@@ -238,7 +233,7 @@ def test_vectorized_window_merge_matches_scalar():
 def test_length_one_patterns_all_engines():
     # lmin=1 pins the chooser to q=1 stride=1 (and w=1 sampled, where
     # every position is trivially selected); both engines must stay exact
-    from tpu_pattern_matching.core.oracle import match_python
+    from pattern_matching.core.oracle import match_python
 
     pats = [b"x", b"\x00", b"ab"]
     data = b"x" + b"\x00" * 3 + b"zabx" * 10
@@ -254,7 +249,7 @@ def test_long_pattern_exceeds_chunk_all_engines():
     # max_pat_len-1 so the match (spanning 5 lanes) must still report once
     import numpy as np
 
-    from tpu_pattern_matching.core.oracle import match_python
+    from pattern_matching.core.oracle import match_python
 
     rng = np.random.RandomState(0)
     pats = [bytes(rng.randint(0, 256, size=1024).astype(np.uint8)), b"zz"]

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.ops.exact_gram import (
+from pattern_matching.ops.exact_gram import (
     DeviceExact,
     build_exact_table,
     exact_member,

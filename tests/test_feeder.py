@@ -6,7 +6,7 @@ import time
 
 import pytest
 
-from tpu_pattern_matching.runtime.feeder import Feeder
+from pattern_matching.runtime.feeder import Feeder
 
 
 def write(path, data: bytes):
@@ -136,7 +136,7 @@ def _follow_ushort(tmp_path, initial: bytes, append: bytes | None,
     """Drive a follow-mode ushort feeder: read the initial text, optionally
     append once the first batch arrived, stop once ``want`` is reached (or
     on timeout), and return every token delivered in order."""
-    from tpu_pattern_matching.runtime.buffers import UshortBuffer
+    from pattern_matching.runtime.buffers import UshortBuffer
 
     p = tmp_path / "flow.txt"
     write(p, initial)
@@ -158,7 +158,7 @@ def _follow_ushort(tmp_path, initial: bytes, append: bytes | None,
 
 
 def test_ushort_follow_revisit_no_duplicate_tokens(tmp_path):
-    # ADVICE r2 (high): follow-mode revisits used to seek the TOKEN offset
+    # follow-mode revisits used to seek the TOKEN offset
     # of a ushort stream (tokens <= text bytes), re-reading and re-parsing
     # already-consumed text -> duplicate tokens. The raw read position
     # (StreamState.text_off) is what must be seeked.
@@ -169,7 +169,7 @@ def test_ushort_follow_revisit_no_duplicate_tokens(tmp_path):
 
 
 def test_ushort_follow_partial_number_spans_append(tmp_path):
-    # ADVICE r2 (medium): a number split by a writer pause ("12" ... "34,")
+    # a number split by a writer pause ("12" ... "34,")
     # must parse as ONE token once the append lands, not flush as 12 early
     toks = _follow_ushort(tmp_path, b"7,12", b"34,9,", want=[7, 1234, 9])
     assert toks == [7, 1234, 9]
@@ -178,7 +178,7 @@ def test_ushort_follow_partial_number_spans_append(tmp_path):
 def test_ushort_follow_partial_number_flushed_at_shutdown(tmp_path):
     # the held partial trailing number is NOT lost when the feeder stops:
     # finalize_stream emits it as the final token
-    from tpu_pattern_matching.runtime.buffers import UshortBuffer
+    from pattern_matching.runtime.buffers import UshortBuffer
 
     p = tmp_path / "flow.txt"
     write(p, b"7,12")

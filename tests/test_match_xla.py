@@ -7,9 +7,9 @@ import io
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.runtime.session import MatchSession
 from tests.fixtures import planted_binary, random_words_corpus
 
 
@@ -119,7 +119,7 @@ def test_exact_total_with_slot_overflow():
     table = compile_patterns(patterns)
     sess = MatchSession(table, max_chunks=2, chunk_len=64, max_results=4, engine="dense")
     buf = sess.new_buffer()
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.buffers import StreamState
 
     buf.add_stream(io.BytesIO(data), StreamState(file_id=0))
     bm = sess.scan_and_decode(buf.to_batch())
@@ -134,7 +134,7 @@ def test_sorted_compaction():
     table = compile_patterns(patterns)
     sess = MatchSession(table, max_chunks=8, chunk_len=16, sort=True)
     buf = sess.new_buffer()
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.buffers import StreamState
 
     buf.add_stream(io.BytesIO(data), StreamState(file_id=0))
     bm = sess.scan_and_decode(buf.to_batch())
@@ -149,7 +149,7 @@ def test_group_counts_device():
     table = compile_patterns(patterns)
     sess = MatchSession(table, max_chunks=4, chunk_len=32, engine="dense")
     buf = sess.new_buffer()
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.buffers import StreamState
 
     buf.add_stream(io.BytesIO(data), StreamState(file_id=0))
     comp = sess.scan(buf.to_batch())
@@ -161,7 +161,7 @@ def test_group_counts_device():
 
 
 def test_group_counts_exact_past_slot_overflow():
-    # VERDICT r2 item 4: per-group counts must stay exact when lanes
+    # per-group counts must stay exact when lanes
     # overflow their R result slots (match-dense input, the config-5
     # count-workload shape) — the in-scan gcounts count every report, not
     # just the stored slots
@@ -172,7 +172,7 @@ def test_group_counts_exact_past_slot_overflow():
     sess = MatchSession(compile_patterns(pats), max_chunks=4,
                         chunk_len=256, engine="dense", max_results=4)
     buf = sess.new_buffer()
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.buffers import StreamState
 
     stream = StreamState(file_id=0)
     fobj = io.BytesIO(data)
@@ -210,7 +210,7 @@ def test_multi_file_ids():
     table = compile_patterns(patterns)
     sess = MatchSession(table, max_chunks=8, chunk_len=16)
     buf = sess.new_buffer()
-    from tpu_pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.buffers import StreamState
 
     buf.add_stream(io.BytesIO(b"aazzbb"), StreamState(file_id=7))
     buf.add_stream(io.BytesIO(b"zz"), StreamState(file_id=9))
@@ -227,7 +227,7 @@ def test_find_raises_on_slot_overflow():
     import numpy as np
     import pytest
 
-    from tpu_pattern_matching.core.oracle import match_python
+    from pattern_matching.core.oracle import match_python
 
     rng = np.random.RandomState(0)
     pats = list({bytes(rng.randint(0, 2, size=5).astype(np.uint8))

@@ -9,12 +9,12 @@ import jax
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.ops.table import DeviceTable
-from tpu_pattern_matching.parallel.mesh import MeshContext, make_mesh, make_sharded_scan_step
-from tpu_pattern_matching.runtime.buffers import DataBuffer, StreamState
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.ops.table import DeviceTable
+from pattern_matching.parallel.mesh import MeshContext, make_mesh, make_sharded_scan_step
+from pattern_matching.runtime.buffers import DataBuffer, StreamState
+from pattern_matching.runtime.session import MatchSession
 from tests.fixtures import planted_binary
 
 
@@ -108,9 +108,9 @@ def test_sharded_bloom_equals_unsharded():
     import jax
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable, _hits_jit
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import BloomFilterTable, _hits_jit
+    from pattern_matching.parallel.mesh import (
         MeshContext,
         make_mesh,
         make_sharded_bloom_step,
@@ -133,7 +133,7 @@ def test_sharded_bloom_equals_unsharded():
 
     total1, bits1 = _hits_jit(
         jax.device_put(data), jax.device_put(bounds),
-        jax.device_put(bft.words), cfg=bft.cfg, interpret=True,
+        jax.device_put(bft.words), cfg=bft.cfg,
     )
 
     ctx = MeshContext(make_mesh(jax.devices()[:n_dev]))
@@ -149,7 +149,7 @@ def test_sharded_bloom_equals_unsharded():
 
 
 def test_session_mesh_product_path(mesh_ctx):
-    # VERDICT round-1 item 1: the multi-chip path must be reachable from
+    # the multi-chip path must be reachable from
     # MatchSession itself, both engines, oracle-exact
     patterns = [b"\xde\xad\xbe\xef", b"needle!", b"abcab"]
     data, _ = planted_binary(77, 1 << 14, patterns, 25)
@@ -185,7 +185,7 @@ def test_session_mesh_bloom_group_counts(mesh_ctx):
         got += sess_b.event_group_counts(bm)
 
     # dense reference: the sharded psum step
-    from tpu_pattern_matching.ops.table import DeviceTable
+    from pattern_matching.ops.table import DeviceTable
 
     halo = table.max_pat_len - 1
     C = 8 * mesh_ctx.num_devices
@@ -205,13 +205,13 @@ def test_session_mesh_bloom_group_counts(mesh_ctx):
     np.testing.assert_array_equal(got, np.asarray(gcounts))
 
     # host-count allreduce helper is a no-op single-process
-    from tpu_pattern_matching.parallel.mesh import allreduce_host_counts
+    from pattern_matching.parallel.mesh import allreduce_host_counts
 
     np.testing.assert_array_equal(allreduce_host_counts(got), got)
 
 
 def test_session_mesh_device_verify_events(mesh_ctx):
-    # VERDICT r3 item 1: verify='device' composes with mesh= — the full
+    # verify='device' composes with mesh= — the full
     # verify pipeline runs per shard under shard_map, events come back
     # lane-sharded, and the session decode is oracle-exact with zero host
     # CPU in the verify loop
@@ -257,10 +257,10 @@ def test_mesh_device_verify_event_overflow_retry(mesh_ctx):
 
 
 def test_sharded_bloom_rejects_unaligned_lanes(mesh_ctx):
-    # ADVICE round 1: an unaligned per-shard lane count would silently
+    # an unaligned per-shard lane count would silently
     # corrupt the bitmap's column->lane mapping; it must be a loud error
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
-    from tpu_pattern_matching.parallel.mesh import make_sharded_bloom_step
+    from pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.parallel.mesh import make_sharded_bloom_step
 
     table = compile_patterns([b"abcdef"])
     bft = BloomFilterTable.from_table(table)
@@ -279,13 +279,13 @@ def test_sharded_bloom_rejects_unaligned_lanes(mesh_ctx):
 
 
 def test_sharded_bloom_count_step_all_device(mesh_ctx):
-    # VERDICT r2 item 1 "done" criterion: config 5 on the bloom engine
+    # config 5 on the bloom engine
     # with NO host verify in the loop — probe + device verify + psum
     # group counts in one jit, agreeing exactly with the host-verified
     # session counts
     import io
 
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.parallel.mesh import (
         make_sharded_bloom_count_step,
     )
 
@@ -325,10 +325,10 @@ def test_sharded_bloom_count_step_all_device(mesh_ctx):
 
 
 def test_ushort_session_on_mesh(mesh_ctx):
-    # VERDICT r3 weak 5: the AC_ushorts workload gets the flagship
+    # the AC_ushorts workload gets the flagship
     # parallelism — alphabet-2048 sessions on the mesh (both engines,
     # plus device verify and pattern shards), oracle-exact in token units
-    from tpu_pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
+    from pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
 
     rng = np.random.RandomState(17)
     pat_list = [
@@ -359,7 +359,7 @@ def test_ushort_session_on_mesh(mesh_ctx):
 
 def test_ushort_cli_mesh(tmp_path, capsys):
     # the product path: --ushort --mesh all through the CLI
-    from tpu_pattern_matching.cli import main
+    from pattern_matching.cli import main
 
     sig = tmp_path / "sigs.txt"
     sig.write_text("40,32,287; 3; alpha\n7,7; 2; beta\n")
@@ -378,11 +378,11 @@ def test_ushort_cli_mesh(tmp_path, capsys):
 
 
 def test_sharded_bloom_counter_auto_retry(mesh_ctx):
-    # VERDICT r3 item 5: a match-dense batch overflows the initial
+    # a match-dense batch overflows the initial
     # per-shard capacities; ShardedBloomCounter rescans the SAME batch at
     # the exact reported needs and returns oracle-exact counts with no
     # manual tuning
-    from tpu_pattern_matching.parallel.mesh import ShardedBloomCounter
+    from pattern_matching.parallel.mesh import ShardedBloomCounter
 
     patterns = [b"ababab"]
     table = compile_patterns(patterns)
@@ -424,12 +424,12 @@ def test_sharded_count_step_with_refinement(mesh_ctx):
 
     import jax
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.parallel.mesh import (
         make_sharded_bloom_count_step,
     )
-    from tpu_pattern_matching.runtime.buffers import StreamState
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.session import MatchSession
 
     rng = np.random.RandomState(21)
     pats = [bytes(rng.randint(97, 123, size=6).astype(np.uint8))

@@ -27,9 +27,9 @@ _WORKER = textwrap.dedent(
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
-    from tpu_pattern_matching.parallel.mesh import (
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.parallel.mesh import (
         MeshContext, make_mesh, make_sharded_bloom_step,
     )
 
@@ -69,8 +69,8 @@ _WORKER = textwrap.dedent(
     assert t >= 1, t  # the planted gram survives on every process's view
 
     # ---- the PRODUCT path across processes: the CLI with DISJOINT file
-    # ownership (VERDICT r2 missing 2: every host previously read the
-    # whole corpus, so input bandwidth could not scale with hosts).
+    # ownership (were every host to read the whole corpus, input
+    # bandwidth could not scale with hosts).
     # Each host's feeder round-robins its own file subset into its own
     # lane shard; scan assembles the global array from process-local
     # shards; each host decodes + prints only ITS lanes; stats allreduce.
@@ -78,8 +78,8 @@ _WORKER = textwrap.dedent(
     import re
     from contextlib import redirect_stdout
 
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.cli import main
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.cli import main
 
     workdir = sys.argv[3]
     rng3 = np.random.RandomState(99)
@@ -119,16 +119,23 @@ _WORKER = textwrap.dedent(
         for off, pidx in match_python(pats, data):
             want.add((i, off - len(pats[pidx]) + 1, pidx))
 
-    out = io.StringIO()
-    with redirect_stdout(out):
-        rc = main([
-            "-f", files, "-p", patfile, "-x", "-v",
-            "-B", "64", "-G", "512", "-w", "1",
-            "--engine", "bloom",
-            "--num-processes", "2", "--process-id", str(pid),
-        ])
-    assert rc == 0
-    text = out.getvalue()
+    def cli_run(engine):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            rc = main([
+                "-f", files, "-p", patfile, "-x", "-v",
+                "-B", "64", "-G", "512", "-w", "1",
+                "--engine", engine,
+                "--num-processes", "2", "--process-id", str(pid),
+            ])
+        assert rc == 0
+        return out.getvalue()
+
+    def stats_matches(text):
+        m = re.search(r"Matches:\\s+(\\d+)", text)
+        return int(m.group(1)) if m else None
+
+    text = cli_run("bloom")
     got = set()
     for m in re.finditer(
         r"Pattern (\\d+) \\('[^']*'\\) found in file '[^']*in(\\d+)\\.bin' "
@@ -141,16 +148,20 @@ _WORKER = textwrap.dedent(
     assert {f for f, _, _ in got} <= own_files, (pid, got)
     assert got == {e for e in want if e[0] in own_files}, (pid, got)
     if pid == 0:
-        m = re.search(r"Matches:\\s+(\\d+)", text)
-        assert m and int(m.group(1)) == len(want), (m, len(want))
+        assert stats_matches(text) == len(want), (text[-500:], len(want))
+    # the dense engine's mesh totals already count both processes' lanes:
+    # the stats block must not sum them once per process
+    text_d = cli_run("dense")
+    if pid == 0:
+        assert stats_matches(text_d) == len(want), (text_d[-500:], len(want))
 
-    # ---- pattern shards x multi-process (VERDICT r3 item 2): the
+    # ---- pattern shards x multi-process: the
     # ("pat", "data") grid built so each process owns ALL pat rows of its
     # data columns — each host feeds only ITS lanes, decodes only ITS
     # events, and the per-host event sets are oracle-exact on disjoint
     # payloads (the union across hosts is then exact by construction).
-    from tpu_pattern_matching.runtime.buffers import StreamState
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.runtime.buffers import StreamState
+    from pattern_matching.runtime.session import MatchSession
 
     sessP = MatchSession(
         table, max_chunks=256, chunk_len=64, engine="bloom",
@@ -201,7 +212,7 @@ _WORKER = textwrap.dedent(
         bt = b2.to_batch()
         return bt, sess.decode(bt, sess.scan(bt))
 
-    # round 5 (VERDICT r4 weak 3): MeshDeviceVerifier ACROSS processes —
+    # round 5: MeshDeviceVerifier ACROSS processes —
     # exercises _assemble's contiguous-lane rebasing on a 2-proc mesh
     sessV = MatchSession(table, max_chunks=256, chunk_len=64,
                          engine="bloom", mesh="all", verify="device")
@@ -211,7 +222,7 @@ _WORKER = textwrap.dedent(
     assert got_v == want_p, (pid, len(got_v), len(want_p))
     assert bmV.total == want_events_global, (bmV.total, want_events_global)
 
-    # round 5 (VERDICT r4 missing 1): pshard device-verify EVENTS across
+    # round 5: pshard device-verify EVENTS across
     # processes — per-shard walks + host-local cross-shard event merge
     sessPV = MatchSession(table, max_chunks=256, chunk_len=64,
                           engine="bloom", mesh="all", pat_shards=2,
@@ -223,7 +234,7 @@ _WORKER = textwrap.dedent(
     assert bmPV.total == want_events_global, (
         bmPV.total, want_events_global)
 
-    # round 5 (VERDICT r4 missing 2): the DENSE engine across processes —
+    # round 5: the DENSE engine across processes —
     # per-device compaction keeps tuples lane-sharded so each host
     # decodes exactly the lanes it fed (previously rejected outright)
     sessD = MatchSession(table, max_chunks=256, chunk_len=64,
@@ -245,7 +256,7 @@ _WORKER = textwrap.dedent(
 
 
 @pytest.mark.skipif(
-    os.environ.get("TPM_TEST_TPU"), reason="multi-process sim is CPU-only"
+    os.environ.get("TPM_TEST_GPU"), reason="multi-process sim is CPU-only"
 )
 def test_two_process_sharded_bloom(tmp_path):
     import socket

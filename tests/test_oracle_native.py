@@ -4,13 +4,13 @@ device engine — three independent implementations cross-checked."""
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_naive, match_python
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_naive, match_python
+from pattern_matching.runtime.session import MatchSession
 from tests.fixtures import planted_binary
 
 oracle_native = pytest.importorskip(
-    "tpu_pattern_matching.core.oracle_native", reason="g++ unavailable"
+    "pattern_matching.core.oracle_native", reason="g++ unavailable"
 )
 try:
     oracle_native._lib()

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.apps.sentiment import (
+from pattern_matching.apps.sentiment import (
     SentimentAnalyzer,
     TimeWindowCounter,
     build_sentiment_patterns,
@@ -65,7 +65,7 @@ def test_build_patterns_file(tmp_path):
     assert lines[3] == '-3 " meh "'  # from the scored lexicon, negative mean
     assert meta[1] == 0.9 and meta[-3] == 0.5
     # the file parses as categorical
-    from tpu_pattern_matching.core.patterns import load_pattern_file
+    from pattern_matching.core.patterns import load_pattern_file
 
     parsed = load_pattern_file(str(out))
     assert [p.iid for p in parsed] == [-1, -2, 1, -3]
@@ -126,7 +126,7 @@ def test_stdin_pipe_mode(capsys, monkeypatch):
 def test_bulk_group_counts_equals_per_event():
     # the closed-form bulk update must equal n per-event updates at the
     # same timestamp exactly (linearity of the decayed counter at dt=0)
-    from tpu_pattern_matching.apps.sentiment import SentimentAnalyzer
+    from pattern_matching.apps.sentiment import SentimentAnalyzer
 
     iids = [-1, 2, 3]
     labels = ["bad", "good", "great"]

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-import tpu_pattern_matching.runtime.buffers as bufmod
-from tpu_pattern_matching.runtime.buffers import DataBuffer, StreamState
+import pattern_matching.runtime.buffers as bufmod
+from pattern_matching.runtime.buffers import DataBuffer, StreamState
 
 stager_native = pytest.importorskip(
-    "tpu_pattern_matching.runtime.stager_native", reason="g++ unavailable"
+    "pattern_matching.runtime.stager_native", reason="g++ unavailable"
 )
 if not stager_native.available():
     pytest.skip("native stager build failed", allow_module_level=True)
@@ -76,8 +76,8 @@ def test_parity_with_numpy_path(tmp_path, size):
 
 
 def test_matches_identical_both_paths(tmp_path):
-    from tpu_pattern_matching.core.dfa import compile_patterns
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import compile_patterns
+    from pattern_matching.runtime.session import MatchSession
 
     patterns = [b"abcdefgh"]
     data = (b"x" * 60 + b"abcdefgh") * 30

@@ -31,7 +31,7 @@ def test_extract_directions(tmp_path):
     assert open(rx).read().strip() == "32"
     assert open(txrx).read().strip() == "40, -32, 287"
     # txrx trains feed straight into flow-line parsing (negatives allowed)
-    from tpu_pattern_matching.core.patterns import parse_flow_line
+    from pattern_matching.core.patterns import parse_flow_line
 
     vals = parse_flow_line(open(txrx).read())
     assert vals[0] == 40

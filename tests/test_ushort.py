@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.cli import main
-from tpu_pattern_matching.core.oracle import match_naive
-from tpu_pattern_matching.core.patterns import load_signature_file, parse_flow_line
-from tpu_pattern_matching.ushort import compile_signatures, lanes_from_sequences
+from pattern_matching.cli import main
+from pattern_matching.core.oracle import match_naive
+from pattern_matching.core.patterns import load_signature_file, parse_flow_line
+from pattern_matching.ushort import compile_signatures, lanes_from_sequences
 
 
 SIGS = """40,32,287,32,106,196; 6; File scanner (metasploit file scanning)
@@ -54,9 +54,9 @@ def test_ushort_match_parity(tmp_path):
     data, start_t, end_t, fids, base = lanes_from_sequences(
         [(0, np.asarray(flow, np.uint16))], chunk_len=4, halo=table.max_pat_len - 1
     )
-    from tpu_pattern_matching.ops.table import DeviceTable
-    from tpu_pattern_matching.ops.match_xla import scan_batch
-    from tpu_pattern_matching.ops.compact import compact_matches
+    from pattern_matching.ops.table import DeviceTable
+    from pattern_matching.ops.match_xla import scan_batch
+    from pattern_matching.ops.compact import compact_matches
 
     dev = DeviceTable.put(table)
     res = scan_batch(dev, data, start_t, end_t, halo=table.max_pat_len - 1)
@@ -102,8 +102,8 @@ def test_ushort_out_of_range_clamped(tmp_path):
         chunk_len=8,
         halo=table.max_pat_len - 1,
     )
-    from tpu_pattern_matching.ops.table import DeviceTable
-    from tpu_pattern_matching.ops.match_xla import scan_batch
+    from pattern_matching.ops.table import DeviceTable
+    from pattern_matching.ops.match_xla import scan_batch
 
     dev = DeviceTable.put(table)
     res = scan_batch(dev, data, start_t, end_t, halo=table.max_pat_len - 1)
@@ -112,7 +112,7 @@ def test_ushort_out_of_range_clamped(tmp_path):
 
 def test_ushort_bloom_and_dense_agree(tmp_path, capsys):
     # same signature/flow fixture through both engines: identical output
-    from tpu_pattern_matching.cli import main
+    from pattern_matching.cli import main
 
     sig = tmp_path / "sigs"
     sig.write_text("40,1500,1500; 3; alpha\n7,7,7; 3; beta\n")
@@ -135,13 +135,13 @@ def test_ushort_bloom_ops_parity_vs_oracle():
     # ops-level: alphabet-2048 bloom + generic-width verify vs the oracle
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import AhoCorasick
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.ops.bloom import (
+    from pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.ops.bloom import (
         BloomFilterTable,
         unpack_hit_rows,
     )
-    from tpu_pattern_matching.runtime.verify import Verifier
+    from pattern_matching.runtime.verify import Verifier
 
     ac = AhoCorasick(alphabet_size=2048)
     seqs = [(40, 1500, 1500), (1000, 999), (7, 7, 7, 7), (2047, 1, 2047)]
@@ -184,14 +184,14 @@ def test_ushort_bloom_ops_parity_vs_oracle():
 
 
 def test_uint16_verify_without_dense_walker():
-    # ADVICE round 1 (high): when the dense window walker is unavailable
+    # when the dense window walker is unavailable
     # (e.g. the >512MB table guard at large 2048-alphabet scale), uint16
     # windows fall back to the sparse oracle — which must receive symbol
     # arrays, not bytes() (that would split each uint16 into two bytes and
     # match nothing)
     import numpy as np
 
-    from tpu_pattern_matching.runtime.verify import Verifier
+    from pattern_matching.runtime.verify import Verifier
 
     v = Verifier(
         [[300, 500, 700]], alphabet_size=2048, q=1, max_pat_len=3,
@@ -211,7 +211,7 @@ def test_uint16_verify_without_dense_walker():
 
 
 def test_ushort_streams_in_rounds(tmp_path, capsys):
-    # VERDICT round-1 item 4: a flow corpus much larger than one batch must
+    # a flow corpus much larger than one batch must
     # stream through multiple feeder rounds (the reference's databuf round
     # loop, AC_ushorts/databuf.c:154-190), not a one-shot slurp
     import json
@@ -240,7 +240,7 @@ def test_ushort_streams_in_rounds(tmp_path, capsys):
 
 def test_ushort_partial_number_across_reads():
     # the incremental parser must not split a number cut by a read boundary
-    from tpu_pattern_matching.runtime.buffers import parse_token_stream
+    from pattern_matching.runtime.buffers import parse_token_stream
 
     t1, rem = parse_token_stream(b"12,287", b"", final=False, clamp=2047)
     assert t1.tolist() == [12] and rem == b"287"
@@ -257,7 +257,7 @@ def test_parse_digit_runs_vectorized_parity():
     # every run length, including runs far past uint64 (2**16 | 2**64)
     import re
 
-    from tpu_pattern_matching.runtime.buffers import _parse_digit_runs
+    from pattern_matching.runtime.buffers import _parse_digit_runs
 
     D = re.compile(rb"\d+")
 
@@ -293,7 +293,7 @@ def test_ushort_follow_mode(tmp_path):
     flow.write_text("1,2,3,")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.Popen(
-        [sys.executable, "-m", "tpu_pattern_matching.cli",
+        [sys.executable, "-m", "pattern_matching.cli",
          "-f", str(flow), "-p", str(sig), "--ushort", "-v", "-F",
          "-B", "32", "-G", "4", "-w", "1"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, cwd=repo,
@@ -328,7 +328,7 @@ def test_ushort_follow_mode(tmp_path):
 def test_ushort_library_find_on_flow_text():
     # MatchSession.find over flow TEXT for metadata tables: new_buffer
     # returns the token-parsing UshortBuffer for non-byte alphabets
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.runtime.session import MatchSession
 
     import tempfile, os
 
@@ -353,9 +353,9 @@ def test_ushort_stream_longer_than_parse_swath():
     # buffer reads nothing.
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import AhoCorasick
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.runtime.session import MatchSession
 
     rng = np.random.RandomState(5)
     pats = [(3, 1, 4, 1), (2, 7, 2)]
@@ -381,9 +381,9 @@ def test_ushort_refined_session_parity():
     # refinement must actually be on (exact_meta set) for refinable q
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import AhoCorasick
-    from tpu_pattern_matching.core.oracle import match_python
-    from tpu_pattern_matching.runtime.session import MatchSession
+    from pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.core.oracle import match_python
+    from pattern_matching.runtime.session import MatchSession
 
     rng = np.random.RandomState(77)
     ac = AhoCorasick(alphabet_size=2048)
@@ -417,8 +417,8 @@ def test_ushort_bloom_save_load_keeps_alphabet(tmp_path):
     # so a loaded ushort filter still refines with 11-bit keys
     import numpy as np
 
-    from tpu_pattern_matching.core.dfa import AhoCorasick
-    from tpu_pattern_matching.ops.bloom import BloomFilterTable
+    from pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.ops.bloom import BloomFilterTable
 
     ac = AhoCorasick(alphabet_size=2048)
     for s in [(40, 1500, 1500), (7, 7, 7, 7)]:

@@ -1,17 +1,17 @@
 """Device-side verify stage (ops/verify_device.py): exact parity with the
 oracle and the host verifier, event-capacity retry, cap fallback, and the
 exact device-side group counts. Runs as pure XLA, so the CPU mesh covers it;
-the TPU A/B numbers live in benchmarks/exp_verify_ab.py."""
+the device A/B lives in benchmarks/exp_verify_ab.py."""
 
 import io
 
 import numpy as np
 import pytest
 
-from tpu_pattern_matching.core.dfa import compile_patterns
-from tpu_pattern_matching.core.oracle import match_python
-from tpu_pattern_matching.runtime.buffers import StreamState
-from tpu_pattern_matching.runtime.session import MatchSession
+from pattern_matching.core.dfa import compile_patterns
+from pattern_matching.core.oracle import match_python
+from pattern_matching.runtime.buffers import StreamState
+from pattern_matching.runtime.session import MatchSession
 
 
 def oracle(pats, data):
@@ -84,7 +84,7 @@ def test_device_verify_counts_exact_and_match_dense_retry():
 def test_device_verify_cap_falls_back_to_host(monkeypatch):
     # past MAX_DEVICE_CAND candidates the device path refuses and decode
     # falls back to the host verifier — exactness is never at risk
-    import tpu_pattern_matching.ops.verify_device as vd
+    import pattern_matching.ops.verify_device as vd
 
     monkeypatch.setattr(vd, "MAX_DEVICE_CAND", 2)
     pats = [b"he", b"she"]
@@ -95,7 +95,7 @@ def test_device_verify_cap_falls_back_to_host(monkeypatch):
 
 
 def test_device_verify_nocase():
-    from tpu_pattern_matching.core.dfa import AhoCorasick
+    from pattern_matching.core.dfa import AhoCorasick
 
     ac = AhoCorasick(nocase=True)
     ac.add_pattern(b"NeEdLe")
@@ -107,7 +107,7 @@ def test_device_verify_nocase():
 
 
 def test_device_verify_ushort_alphabet():
-    from tpu_pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
+    from pattern_matching.core.dfa import ALPHABET_USHORT, AhoCorasick
 
     ac = AhoCorasick(ALPHABET_USHORT)
     ac.add_pattern([40, 32, 287])
